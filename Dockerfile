@@ -3,9 +3,9 @@
 # but the native append-log store does: build it with the full toolchain,
 # ship only the shared object + sources into the slim image.
 #
-# The image runs the CPU backend by default; on TPU hosts install the
-# matching jax[tpu] wheel at deploy time (libtpu is host-coupled, baking
-# it into a generic image pins the wrong runtime).
+# The image runs the CPU backend by default; on NVIDIA GPU hosts install
+# the matching jax[cuda12] wheel at deploy time (the CUDA runtime is
+# host-coupled, baking it into a generic image pins the wrong one).
 
 FROM python:3.12-slim-bookworm AS build
 WORKDIR /app
@@ -19,7 +19,7 @@ RUN make -C native
 FROM python:3.12-slim-bookworm
 
 WORKDIR /app
-RUN pip install --no-cache-dir "jax[cpu]" numpy msgpack pyyaml requests
+RUN pip install --no-cache-dir "jax[cpu]" numpy msgpack pyyaml requests xxhash
 
 COPY semadb_tpu/ semadb_tpu/
 COPY config/ config/

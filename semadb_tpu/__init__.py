@@ -1,4 +1,4 @@
-"""semadb_tpu — a TPU-native multi-index hybrid vector database.
+"""semadb_tpu — a multi-index hybrid vector database for JAX accelerators.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of SemaDB
 (reference: Semafind/semadb, pure Go): DiskANN/Vamana graph ANN search,
@@ -6,11 +6,11 @@ flat exact search, inverted/text indices, binary & product quantization,
 hybrid query AST with weighted score fusion, multi-tenant collections and
 a sharded cluster mode with scatter-gather search.
 
-Architecture (TPU-first, not a translation):
+Architecture (accelerator-first, not a translation):
   - Vector state lives device-resident as dense, padded, fixed-shape arrays
     (vectors ``f32[cap, D]``, adjacency ``i32[cap, R]``) and is updated
     functionally inside ``jit``.
-  - Distance evaluation is blocked MXU matmuls; beam search is a batched
+  - Distance evaluation is blocked matmuls; beam search is a batched
     frontier loop under ``lax.while_loop``; quantizer training (k-means) and
     ADC search run on device.
   - Sharding maps to a ``jax.sharding.Mesh`` ("shard" axis); fan-out search

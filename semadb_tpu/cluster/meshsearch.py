@@ -6,9 +6,9 @@ coordinator (cluster/actions.go:274-378). Here a collection can opt into
 ``shardPlacement: "device"``: this node stacks its LOCAL shards' device
 indices along a ``jax.sharding.Mesh`` axis (parallel/fanout.py) and serves
 eligible vector queries with a single ``sharded_*_search`` dispatch whose
-per-shard top-k merge rides ICI all-gather — the TPU-native replacement
-for the goroutine fan-out, with an EXACT global top-k instead of the
-Poisson per-shard limit approximation.
+per-shard top-k merge rides an all-gather over the device interconnect —
+the device-side replacement for the goroutine fan-out, with an EXACT
+global top-k instead of the Poisson per-shard limit approximation.
 
 Eligibility (everything else falls back to the host fan-out transparently):
   - plain vector query (vectorVamana / vectorIVF), no filter, no _and/_or
@@ -350,7 +350,9 @@ class MeshSearcher:
                     st.stacked, qd, st.config, L, k, self.mesh
                 )
         else:
-            p = num_probes or st.probes
+            # The host path clamps an explicit probe count the same way
+            # (IndexIVF._num_probes): never more probes than clusters.
+            p = min(num_probes or st.probes, st.stacked["centroids"].shape[1])
             metric = col.index_schema.get(prop).vector_ivf.distance_metric
             if masks is not None:
                 d, i, s = sharded_ivf_search_filtered(
@@ -405,7 +407,7 @@ class MeshSearcher:
         """Fused-hybrid mesh serving: maps each request into every
         shard's OWN psi space (per-shard fitted norm scales) and issues
         ONE sharded dispatch whose per-shard rank constants are added
-        device-side before the ICI top-k merge (parallel/fanout.py
+        device-side before the all-gather top-k merge (parallel/fanout.py
         sharded_fused_search)."""
         import jax.numpy as jnp
 

@@ -598,8 +598,8 @@ class ClusterNode:
 
         Replaces the reference's per-shard goroutine fan-out
         (actions.go:274-378) with ONE sharded_*_search dispatch whose
-        top-k merge rides ICI; the result is the EXACT global top-k, so
-        no Poisson per-shard-limit shrink is needed.
+        top-k merge rides an all-gather; the result is the EXACT global
+        top-k, so no Poisson per-shard-limit shrink is needed.
 
         Multi-node composition: when the collection spans several nodes,
         THIS node mesh-serves the shards it owns (a partial stack padded

@@ -2,8 +2,8 @@
 
 Reference: shard/index/flat/flat.go — a full scan with insertion-sort top-K
 and filter bitmap check, sharing the vectorstore (and thus quantizers) with
-the vamana index. TPU-native: the scan is one blocked distance matmul (or a
-bit/ADC scan when quantized) plus ``top_k`` — the ideal MXU workload.
+the vamana index. On the device the scan is one blocked distance matmul (or
+a bit/ADC scan when quantized) plus ``top_k``.
 """
 
 from __future__ import annotations

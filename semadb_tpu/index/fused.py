@@ -10,9 +10,9 @@ _run_hybrid) fixes the ranking but still only sees candidates surfaced
 by some single view, capping measured recall at ~0.985-0.99 vs the
 exact combined-score ground truth.
 
-This module removes the structural miss entirely, the TPU-first way:
+This module removes the structural miss entirely:
 for weighted sums of per-view distances the fused score is LINEAR in an
-augmented point feature, so one MXU matmul computes exact fused scores
+augmented point feature, so one matmul computes exact fused scores
 for arbitrary *per-query* weights:
 
   euclidean view i:  w_i * |x_i - q_i|^2
@@ -277,7 +277,7 @@ class FusedHybridIVF:
         return len(self.index)
 
     def sync(self) -> None:
-        """Tunnel-safe build-completion barrier (see IndexIVF.sync)."""
+        """Build-completion barrier (see IndexIVF.sync)."""
         self.index.sync()
 
     @property

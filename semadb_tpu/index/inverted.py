@@ -9,7 +9,7 @@ startsWith(prefix)/gt/gte/lt/lte/inRange(range scan) → union
 per-element array diffing with containsAll/Any algebra (array.go:28-80).
 
 These indices stay host-side: they are pointer-chasing set algebra over
-tiny postings, not MXU work. Sets are sorted uint64 numpy arrays.
+tiny postings, not matmul work. Sets are sorted uint64 numpy arrays.
 """
 
 from __future__ import annotations

@@ -1,13 +1,11 @@
-"""MXU-native Vamana bulk construction: per-cluster exact-kNN candidate pools.
+"""Matmul-built Vamana bulk construction: per-cluster exact-kNN candidate pools.
 
 The DiskANN-style two-pass build (insert.go:16-68: greedy-search every
 point, robust-prune its visited set) spends essentially all of its time in
-the beam searches — measured ~460 s of device execution for 1M x 128d on
-one v5e chip, because each hop is a random-row HBM gather (the measured
-~45 GB/s wall, BENCHMARKS.md "negative results").
+the beam searches, because each hop is a random-row gather from device
+memory.
 
-This module replaces the searches with dense linear algebra the MXU is
-built for:
+This module replaces the searches with dense linear algebra:
 
   1. k-means the batch into C ≈ N/256 clusters (vectorstore.kmeans
      ``kmeans_fit_large`` — blocked, single dispatch).
@@ -34,7 +32,7 @@ Reference parity: this replaces vamana.go:190-253's parallel insert
 workers for the initial bulk load only; incremental writes keep the
 beam-search path (build.py). Quality is validated against the same recall
 harness as the two-pass build (semadb_tpu/tools/annbench.py via
-BENCH_MODE=plain SEMADB_VAMANA_BUILD=pool, BENCHMARKS.md).
+BENCH_MODE=plain SEMADB_VAMANA_BUILD=pool).
 """
 
 from __future__ import annotations
@@ -49,8 +47,8 @@ import numpy as np
 from semadb_tpu.index.vamana.graph import NIL, START_ID, GraphConfig, GraphState
 from semadb_tpu.ops.topk import INF
 
-# Pool-shape knobs (env-tunable for the build lab; defaults are the
-# measured sweet spot at 1M x 128d — see BENCHMARKS.md fast-build rows).
+# Pool-shape knobs (env-tunable for the build lab; defaults were tuned at
+# 1M x 128d, ROADMAP D5).
 KNN_K = int(os.environ.get("SEMADB_VAMANA_FB_K", 64))  # kNN kept per cluster
 ASSIGN_T = int(os.environ.get("SEMADB_VAMANA_FB_T", 2))  # clusters per point
 N_RAND = int(os.environ.get("SEMADB_VAMANA_FB_RAND", 16))  # far candidates
@@ -189,8 +187,8 @@ def build_pools(
 
     Memory-lean mode (``row_off`` > 0, ``n_rows`` set): ``vecs`` is the
     ADOPTED graph matrix (batch row b at vecs[b+row_off]) — no second
-    corpus copy lives in HBM, which is what lets a 10M pool build fit a
-    16 GB chip next to the graph arrays. All gathers go through the
+    corpus copy lives in device memory next to the graph arrays at 10M.
+    All gathers go through the
     offset; the kmeans assignment runs in bounded blocks.
 
     P = ASSIGN_T·KNN_K + N_RAND. Runs entirely on device except the member
@@ -241,7 +239,7 @@ def build_pools(
     C = max(16, n // MEMBER_TARGET)
     # Fit centroids on a strided subsample: pool quality only needs a
     # reasonable space partition, not converged centroids (the same
-    # observation as the PQ codebook subsampling — BENCHMARKS.md round 3).
+    # observation as the PQ codebook subsampling).
     km_cap = int(os.environ.get("SEMADB_VAMANA_FB_KM_SAMPLE", 1 << 18))
     km_cap = max(km_cap, 32 * C)
     stride = max(1, n // km_cap) if n > km_cap else 1
@@ -319,8 +317,8 @@ def build_pools(
     )
 
     # Size-bucketed dispatch: padding every cluster to the HEAVY-TAIL max
-    # wastes m_max²/m̄² of the pairwise matmul (measured 16× at 1M with
-    # T=3: m̄≈768, m_max=3072 → the pool stage alone cost 180 s). Buckets
+    # wastes m_max²/m̄² of the pairwise matmul (16× at 1M with T=3:
+    # m̄≈768, m_max=3072). Buckets
     # of power-of-two widths bound the padding waste at 2× for a handful
     # of compile shapes.
     eff = np.minimum(counts, m_max).astype(np.int64)
@@ -360,8 +358,8 @@ def _truncate_pools(pool_d, pool_i, keep: int):
     """Keep each point's ``keep`` nearest kNN-pool candidates plus the
     trailing N_RAND random far columns. Rich pools (T=3/K=96) lift recall
     through WHICH candidates survive, not how many the prune sees — the
-    insert passes cost ~linear in pool width (measured 60 → 208 s for
-    pass2 at P=144 → 304), so the width is cut back before inserting.
+    insert passes cost ~linear in pool width, so the width is cut back
+    before inserting.
     Duplicate ids across assignment slots carry identical distances and
     collapse in the insert path's merge-dedup."""
     n, P = pool_i.shape
@@ -505,10 +503,9 @@ def bulk_build_pools(
     # with a row offset — no second corpus copy next to pools + graph.
     # At 10M × 128d this is the difference between ~21 GB and ~14 GB peak.
     # Gated on corpus size: lean's offset gathers + blocked kmeans
-    # assignment cost real build time (a 1M × 128d build measured ~262 s
-    # exec lean vs ~107 s with the direct full-array path in one window),
-    # and below the byte threshold the second corpus copy it avoids is
-    # affordable HBM.
+    # assignment cost real build time, and below the byte threshold the
+    # second corpus copy it avoids fits in device memory (a fixed
+    # threshold; ROADMAP S4 derives it from the device).
     off = int(ids32[0]) if n else 0
     lean_bytes = int(
         os.environ.get("SEMADB_VAMANA_FB_LEAN_BYTES", 2 << 30)

@@ -3,7 +3,7 @@
 The reference stores the graph as bbolt pages — per-node edge lists under
 ``n<id>e`` keys (shard/index/vamana/node.go:89-128) and vectors under
 ``n<id>v`` (shard/vectorstore/plain.go:103-147), mutated under per-node
-RWMutexes. The TPU-native design replaces all of that with two dense,
+RWMutexes. The device-side design replaces all of that with two dense,
 fixed-shape arrays resident in HBM, updated functionally under ``jit``:
 
   - ``vectors    f32[cap, D]``   — slot 0 reserved (nil id), slot 1 = start

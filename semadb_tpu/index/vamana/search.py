@@ -11,7 +11,7 @@ Here the whole procedure is batched over B queries under one ``lax.while_loop``:
   - the candidate list is a sorted (distance, id, expanded) tile ``[B, L]``
   - each hop expands the best unexpanded candidate of every query at once
   - neighbour gathering is one ``adjacency[cur]`` gather; distances are one
-    batched contraction on the MXU/VPU (ops.distance.gather_distance)
+    batched contraction on the device (ops.distance.gather_distance)
   - the list merge is a static-shape sort of ``[B, L+R]`` tiles
   - expanded nodes are appended to a visited ring ``[B, V]`` (the reference's
     visitedSet, used as robust-prune candidates during insertion)
@@ -151,7 +151,7 @@ def beam_search(
     ``expand_width`` (W): candidates expanded per hop. The reference expands
     strictly best-first one node at a time (search.go:63-98); expanding the
     W best unexpanded candidates per hop divides the sequential hop count by
-    ~W at slightly more total distance work — the standard GPU/TPU ANN
+    ~W at slightly more total distance work — the standard accelerator ANN
     trade (each hop's gather/contraction is then large enough to fill the
     hardware). W=1 reproduces best-first exactly.
     """

@@ -24,8 +24,12 @@ def main(argv=None) -> int:
     from semadb_tpu.cluster.node import ClusterNode
     from semadb_tpu.cluster.sync import sync
     from semadb_tpu.httpapi.server import run_http_server
+    from semadb_tpu.utils.compilecache import configure as configure_compile_cache
     from semadb_tpu.utils.config import load_config
 
+    # One persistent compile cache across server restarts: the grow-ahead's
+    # AOT warm-up (IndexIVF.warm_capacity_shapes) lands there.
+    configure_compile_cache()
     cfg = load_config(args.config)
     logging.basicConfig(
         level=logging.DEBUG if cfg.debug else logging.INFO,

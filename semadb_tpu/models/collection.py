@@ -61,7 +61,7 @@ class Collection:
     # "host" = rendezvous-routed RPC fan-out; "device" = this node stacks
     # its local shards' device indices along a jax.sharding.Mesh axis and
     # serves eligible vector queries with ONE sharded_*_search dispatch
-    # (ICI all-gather top-k merge) instead of N per-shard calls.
+    # (all-gather top-k merge) instead of N per-shard calls.
     shard_placement: str = "host"
 
     def to_dict(self) -> dict:

@@ -26,7 +26,7 @@ DISTANCE_METRICS = frozenset(
 INDEX_TYPE_VECTOR_FLAT = "vectorFlat"
 INDEX_TYPE_VECTOR_VAMANA = "vectorVamana"
 INDEX_TYPE_VECTOR_IVF = "vectorIVF"
-# TPU-native multi-view index with exact weighted score fusion — no
+# Multi-view index with exact weighted score fusion — no
 # reference counterpart (index/fused.py rationale; the reference's
 # closest surface is multi-index hybrid search, search.go:211-298).
 INDEX_TYPE_VECTOR_FUSED = "vectorFused"

@@ -60,7 +60,7 @@ class ProductQuantizerParams:
     ``opq`` (beyond-reference extension, default on): learn an orthonormal
     rotation before the subvector split (OPQ, Ge et al. CVPR'13). Same
     code size and query cost (one extra [B,D]x[D,D] matmul per batch —
-    MXU noise), strictly lower quantization error on correlated
+    matmul rounding), strictly lower quantization error on correlated
     dimensions, so ADC recall rises at equal searchSize. Set false for
     bit-exact parity with the reference's plain PQ."""
 

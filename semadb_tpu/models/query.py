@@ -254,7 +254,7 @@ class StringArrayOptions:
 
 @dataclass
 class VectorIVFOptions:
-    """Query options for the TPU-native vectorIVF index (no reference
+    """Query options for the clustered-slab vectorIVF index (no reference
     counterpart). ``numProbes`` overrides the index's probe count."""
 
     vector: list
@@ -296,7 +296,7 @@ class VectorIVFOptions:
 
 @dataclass
 class VectorFusedOptions:
-    """Query options for the TPU-native vectorFused index (no reference
+    """Query options for the vectorFused multi-view index (no reference
     counterpart): one query vector per view, optional per-query fusion
     weight overrides (defaults come from the schema's view weights)."""
 

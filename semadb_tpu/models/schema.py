@@ -117,7 +117,7 @@ class VectorVamanaParams:
 
 @dataclass
 class VectorIVFParams:
-    """TPU-native IVF (clustered) index parameters — no reference
+    """IVF (clustered) index parameters — no reference
     counterpart (index/ivf.py rationale). ``numClusters``/``numProbes``
     default to size-derived values (N/24 clusters, C/170 probes);
     ``slabSize`` is the padded per-cluster slot count."""
@@ -185,7 +185,7 @@ class VectorIVFParams:
                 f"slabSize must be between 8 and 1024, got {self.slab_size}"
             )
         # Cap 8: copies multiply slab memory ~linearly; 6 measured +0.005
-        # recall on product-structured fused corpora (BENCHMARKS round 5)
+        # recall on product-structured fused corpora
         if not (1 <= self.assign_copies <= 8):
             raise ValidationError(
                 f"assignCopies must be between 1 and 8, got {self.assign_copies}"
@@ -300,7 +300,7 @@ class FusedViewParams:
 
 @dataclass
 class VectorFusedParams:
-    """TPU-native fused multi-view index parameters — no reference
+    """Fused multi-view index parameters — no reference
     counterpart. The weighted combined score over all views is computed
     exactly inside ONE augmented-space search (index/fused.py), so
     hybrid recall does not depend on per-view candidate pools. Point
@@ -329,7 +329,7 @@ class VectorFusedParams:
                 f"numClusters must be between 16 and 262144, got {self.num_clusters}"
             )
         # Cap 8: copies multiply slab memory ~linearly; 6 measured +0.005
-        # recall on product-structured fused corpora (BENCHMARKS round 5)
+        # recall on product-structured fused corpora
         if not (1 <= self.assign_copies <= 8):
             raise ValidationError(
                 f"assignCopies must be between 1 and 8, got {self.assign_copies}"

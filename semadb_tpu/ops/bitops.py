@@ -2,7 +2,8 @@
 
 Reference behavior: shard/vectorstore/binary.go:103-184 packs
 ``vector[i] > threshold`` bits into []uint64. Here we pack into uint32 words
-(TPU-native 32-bit lanes), little-endian bit order within a word. The word
+(32-bit words, the native integer width of the accelerator's vector
+units), little-endian bit order within a word. The word
 width is padded up so the packed array keeps a static lane-friendly shape.
 """
 

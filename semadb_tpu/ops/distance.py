@@ -1,9 +1,9 @@
-"""Batched distance kernels — the MXU replacement for the reference's AVX2 asm.
+"""Batched distance kernels — the matmul replacement for the reference's AVX2 asm.
 
 The reference computes one pair at a time through hand-written AVX2/FMA
 assembly (distance/asm/dot.s, distance/asm/euclidean.s, dispatched in
-distance/distance_amd64.go:19-27). On TPU the equivalent of that SIMD
-kernel is the MXU systolic array itself: distances for whole query batches
+distance/distance_amd64.go:19-27). On an accelerator the equivalent of that
+SIMD kernel is the matrix unit itself: distances for whole query batches
 against whole corpus blocks are a single ``q @ X.T`` matmul, so every
 function here is batched and jit-friendly.
 
@@ -54,8 +54,8 @@ def _haversine_pair(x: jax.Array, y: jax.Array) -> jax.Array:
 def pairwise_distance(queries: jax.Array, corpus: jax.Array, metric: str) -> jax.Array:
     """All-pairs distance matrix ``[B, N]`` for float metrics.
 
-    ``queries``: f32[B, D]; ``corpus``: f32[N, D]. The dot products run on
-    the MXU via a single blocked matmul; euclidean uses the
+    ``queries``: f32[B, D]; ``corpus``: f32[N, D]. The dot products run
+    as a single blocked matmul; euclidean uses the
     ``|q|^2 - 2 q.x + |x|^2`` expansion so it is also one matmul.
     """
     if metric == C.DISTANCE_EUCLIDEAN:
@@ -103,7 +103,7 @@ def gather_distance(
 
     This is the hot op of beam search (reference hot loop:
     shard/index/vamana/search.go:63-98 bottoming out in asm kernels). The
-    gather runs on sublanes, the distance contraction on the VPU/MXU.
+    gather and the distance contraction fuse into one device program.
     """
     cand = vectors[ids]  # [B, K, D]
     if metric == C.DISTANCE_EUCLIDEAN:
@@ -133,7 +133,9 @@ def pairwise_bit_distance(queries: jax.Array, corpus: jax.Array, metric: str) ->
     """All-pairs bit distances over packed ``uint32[B, W]`` vs ``uint32[N, W]``.
 
     Reference: distance/distance.go:47-67 over []uint64 words; we pack to
-    uint32 because TPUs operate on 32-bit lanes natively.
+    uint32, the native integer width of the device's vector units. On the
+    GPU the flat index's scan runs the blocked Pallas-Triton kernel
+    (``ops/pallas/hamming.py``) instead; this is its reference.
     """
     q = queries[:, None, :]
     x = corpus[None, :, :]

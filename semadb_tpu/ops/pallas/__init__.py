@@ -1,1 +1,2 @@
-"""Pallas TPU kernels for hot ops (with XLA fallbacks)."""
+"""Pallas kernels for the GPU (Triton route), each with a plain XLA
+reference in ``semadb_tpu.ops``."""

@@ -58,7 +58,7 @@ def dedup_by_id(dists: jax.Array, ids: jax.Array):
     distance per id. Operates on the last axis with static shapes.
 
     O(K^2) mask compare — K is the candidate-list size (<= ~256), cheap on
-    the VPU, no sort-by-id needed.
+    the device, no sort-by-id needed.
     """
     same = ids[..., :, None] == ids[..., None, :]  # [.., K, K]
     better = (dists[..., None, :] < dists[..., :, None]) | (

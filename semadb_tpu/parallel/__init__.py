@@ -1,10 +1,10 @@
 """Device-mesh parallelism: shard-per-device layout + collective fan-out.
 
-TPU-native replacement for the reference's cluster data plane: where SemaDB
+Device-side replacement for the reference's cluster data plane: where SemaDB
 broadcasts a query to shard servers over net/rpc and merges the per-shard
 top-k host-side (cluster/actions.go:267-378), here the shards live one per
 device on a ``jax.sharding.Mesh`` and the merge is an ``all_gather`` +
-top-k on ICI.
+top-k over the device interconnect.
 """
 
 from semadb_tpu.parallel.fanout import (  # noqa: F401

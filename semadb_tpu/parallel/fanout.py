@@ -7,11 +7,11 @@ Reference behavior being replaced (cluster/actions.go):
     the per-shard results, truncates to the user limit.
   - InsertPoints routes disjoint point slices to their shards.
 
-TPU-native: shard states are stacked along a leading axis sharded over the
+On the mesh, shard states are stacked along a leading axis sharded over the
 mesh's "shard" axis. Search runs locally per device under ``shard_map``,
-then one ``all_gather`` over ICI brings the tiny per-shard top-k lists
-everywhere and each device computes the same global top-k (replicated
-output). Inserts run fully locally per device — shards are disjoint.
+then one ``all_gather`` over the device interconnect brings the tiny
+per-shard top-k lists everywhere and each device computes the same global
+top-k (replicated output). Inserts run fully locally per device — shards are disjoint.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def stack_states(states: list[GraphState], mesh) -> GraphState:
 
 
 def _allgather_topk(d, i, extra, k):
-    """Bring every shard's local top-k everywhere over ICI and merge to the
+    """Bring every shard's local top-k everywhere with an all-gather and merge to the
     replicated global top-k (the device-side analog of actions.go:352-378).
     ``extra``: shard-index array shaped like ``i``."""
     d_all = jax.lax.all_gather(d, SHARD_AXIS)  # [S, B, k]
@@ -349,7 +349,7 @@ def sharded_ivf_search(
     metric: str = "euclidean",
 ):
     """IVF fan-out search over the mesh: each device probes its own
-    clusters, then one ICI all-gather merges the per-shard top-k. Returns
+    clusters, then one all-gather merges the per-shard top-k. Returns
     (dists f32[B,k], local node ids i32[B,k], shard idx i32[B,k])."""
     from semadb_tpu.index.ivf import _ivf_query
 
@@ -435,7 +435,7 @@ def sharded_search_filtered(
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """Filtered fan-out search (search.go:27-51 semantics, shard-parallel):
     each device seeds from ITS shard's filter members and admits only
-    members, then one ICI all-gather merges the per-shard top-k."""
+    members, then one all-gather merges the per-shard top-k."""
     from semadb_tpu.index.vamana.search import search_filtered
 
     def local(st: GraphState, q: jax.Array, m: jax.Array):
@@ -510,7 +510,7 @@ def sharded_ivf_pq_search(
     """PQ-mode IVF fan-out (VERDICT r4 #7): codes + per-shard codebooks
     are stacked; the per-(query, shard) ADC table is built INSIDE the
     shard_map body — each device scores its own shard's codes against
-    tables from ITS codebook, reranks with exact f32 rows, and the ICI
+    tables from ITS codebook, reranks with exact f32 rows, and the all-gather
     all-gather merges exact distances (rerank makes cross-shard scores
     comparable even though the codebooks differ). Reference being
     replaced: product.go:136-305 served per-shard over RPC."""

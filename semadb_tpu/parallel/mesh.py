@@ -14,8 +14,8 @@ def shard_mesh(n_devices: int = 0, devices: Optional[Sequence] = None) -> Mesh:
     """1-D mesh over the shard axis.
 
     The reference spreads shards over servers by rendezvous hashing
-    (cluster/hashing.go); on a TPU slice the analog is one shard per device
-    along a single mesh axis, with ICI collectives doing the fan-out.
+    (cluster/hashing.go); on one host's devices the analog is one shard per
+    device along a single mesh axis, with collectives doing the fan-out.
     """
     if devices is None:
         devices = jax.devices()

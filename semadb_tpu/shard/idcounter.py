@@ -1,7 +1,7 @@
 """Persistent node-id allocator with free-list reuse.
 
 Parity reference: shard/idcounter.go — recycled ids keep the id space
-compact, which is what lets the TPU side use node ids directly as dense
+compact, which is what lets the device side use node ids directly as dense
 array row indices (graph.py). Ids 0 (nil) and 1 (graph start) are reserved.
 """
 

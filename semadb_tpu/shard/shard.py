@@ -53,8 +53,7 @@ DELTA_SEQ_KEY = b"_dlogN"
 # A flush costs a device→host readback of every dirty chunk, which for
 # scatter-heavy engines (IVF slabs, vamana backedges) approaches the FULL
 # state within a handful of txns — putting it on a per-N-txns timer put a
-# multi-minute stall inside a write at 10M (measured: 504 s p99 at 1M,
-# BENCHMARKS.md round-4 shardwrite). Compaction therefore runs OFF the
+# multi-minute stall inside a write. Compaction therefore runs OFF the
 # hot path by default: at close/unload/backup (matching the reference's
 # backup-on-unload lifecycle, shardmgr.go:134-138), with two opt-in
 # hot-path triggers for bounded-journal deployments:
@@ -272,8 +271,8 @@ class Shard:
         and recovery replays them over the last cut. Flush runs at
         close/unload/backup and at the opt-in SEMADB_FLUSH_EVERY_TXNS /
         SEMADB_FLUSH_JOURNAL_MB triggers — never on the default hot path
-        (the measured cost of putting it there: 504 s write p99 at 1M,
-        BENCHMARKS.md round-4 shardwrite).
+        (on a timer, a flush of scatter-heavy state approaches a full
+        readback inside a write).
         """
         from semadb_tpu.shard import snapshot as snap
 

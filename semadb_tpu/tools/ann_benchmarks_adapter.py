@@ -19,7 +19,7 @@ Protocol (ann_benchmarks/algorithms/base.py):
   set_query_arguments(op) -> search-time operating point on the pareto
     (IVF: num_probes; vamana: search list L)
   query(v, n) -> top-n train indices for one vector
-  batch_query(X, n) + get_batch_results() -> batched path (the TPU-shaped
+  batch_query(X, n) + get_batch_results() -> batched path (the accelerator-shaped
     one; enable with --batch in ann-benchmarks)
 """
 

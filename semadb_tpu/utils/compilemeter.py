@@ -2,9 +2,9 @@
 
 Bench transparency: build wall-clock through a jitted pipeline mixes XLA
 compilation (host, one-time, persistent-cacheable) with device execution.
-BENCH_r03's build_s jumped 20.7 -> 55.0 purely from cold compiles + an
-honest sync, which an auditor reads as a 2.7x regression; splitting the
-two in the emitted JSON makes the artifact self-explaining.
+A cold compile cache alone can multiply a build time, which reads as a
+regression; splitting the two in the emitted JSON makes the artifact
+self-explaining.
 
 JAX emits ``/jax/core/compile/*_duration`` monitoring events for the
 trace, MLIR lowering, and backend-compile stages of every jit cache miss

@@ -2,7 +2,7 @@
 
 Reference surface: shard/vectorstore/vectorstore.go VectorStore interface
 (Exists/Get/Set/Delete/Fit/DistanceFromFloat/DistanceFromPoint/Flush) with
-three backends (plain.go, binary.go, product.go). TPU-native redesign:
+three backends (plain.go, binary.go, product.go). Device-side redesign:
 
   - vectors and codes are dense device arrays indexed by node id (the same
     id space as the Vamana graph rows)
@@ -12,8 +12,8 @@ three backends (plain.go, binary.go, product.go). TPU-native redesign:
   - query preparation happens once per batch: binarize for BQ, ADC lookup
     tables (one ``[M, K]`` table per query, product.go:254-276) for PQ
   - distance evaluation during search is a gather over codes — 32x less
-    HBM traffic for BQ, D/M·4x less for PQ — the entire point of
-    quantization on a bandwidth-bound chip
+    device-memory traffic for BQ, D/M·4x less for PQ — the entire point of
+    quantization on a bandwidth-bound device
 
 Like the reference, raw float vectors are retained alongside codes (the
 reference stores both in the bucket; memory-saving reads are an
@@ -148,6 +148,16 @@ def bq_encode(vectors: jax.Array, threshold: jax.Array, dim: int) -> jax.Array:
     return bitops.binarize(vectors, threshold, dim)
 
 
+def bit_scan(codes_q: jax.Array, codes: jax.Array, metric: str) -> jax.Array:
+    """All-pairs bit distances for the flat index's binary-quantized scan:
+    the Pallas-Triton kernel on the GPU, the XLA formulation elsewhere."""
+    if jax.default_backend() == "gpu":
+        from semadb_tpu.ops.pallas.hamming import pairwise_bit_distance_pallas
+
+        return pairwise_bit_distance_pallas(codes_q, codes, metric)
+    return pairwise_bit_distance(codes_q, codes, metric)
+
+
 # ---------------------------------------------------------------------------
 # Product quantization kernels
 # ---------------------------------------------------------------------------
@@ -155,8 +165,8 @@ def bq_encode(vectors: jax.Array, threshold: jax.Array, dim: int) -> jax.Array:
 
 # Codebook fits need ~1k samples per centroid, not the corpus: call sites
 # stride-subsample past this many rows (the encode still covers every live
-# row). The 1M full-N fit measured ~8 min of the PQ build; at 256k the
-# codebooks are statistically identical (1024 samples/centroid at K=256).
+# row). At 256k samples the codebooks are statistically identical to a
+# full-N fit (1024 samples/centroid at K=256).
 PQ_FIT_SAMPLE = 262144
 
 
@@ -206,9 +216,9 @@ def opq_fit(
     The iteration runs on a ≤64k-row subsample with capped Lloyd rounds
     (codebooks need ~256 samples per centroid, not the corpus); the final
     codebooks are refit on a ≤PQ_FIT_SAMPLE-row subsample in rotated space
-    (the full-N final fit measured ~8 min of the 1M build for no recall
-    change). The [D, D] SVD runs on host (D ≤ a few thousand,
-    microseconds), everything else on device.
+    (a full-N final fit costs build time for no recall change). The
+    [D, D] SVD runs on host (D ≤ a few thousand, microseconds), everything
+    else on device.
 
     Returns (R f32[D, D], codebooks f32[M, K, dsub]).
     """
@@ -465,18 +475,7 @@ class VectorStore:
             return jnp.where(mask[None, :], d, INF)
         if self.config.kind == BINARY:
             qc = bq_encode(queries, self.state.aux, self.config.dim)
-            from semadb_tpu.ops.pallas.hamming import (
-                pairwise_bit_distance_pallas,
-                supports_pallas,
-            )
-
-            if supports_pallas():
-                # Blocked Pallas kernel: no [B, N, W] HBM intermediate
-                d = pairwise_bit_distance_pallas(
-                    qc, self.state.codes, self.config.bit_metric
-                )
-            else:
-                d = pairwise_bit_distance(qc, self.state.codes, self.config.bit_metric)
+            d = bit_scan(qc, self.state.codes, self.config.bit_metric)
             return jnp.where(mask[None, :], d, INF)
         q = queries if self.state.rot is None else queries @ self.state.rot
         table = pq_query_table(

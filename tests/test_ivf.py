@@ -555,7 +555,7 @@ def test_spill_relocation_keeps_overflow_empty():
     """Primary spill relocates to the next-nearest cluster with room
     instead of the overflow pool: overflow is a DENSE every-query matmul,
     and heavy-tailed kmeans cluster sizes would put percent-scale point
-    counts there (measured 5x QPS loss at 1M). After a refit only points
+    counts there. After a refit only points
     whose top-4 clusters are all full may remain — none, at sane fills."""
     from semadb_tpu.tools.datasets import embedding_like
 
@@ -573,8 +573,7 @@ def test_spill_relocation_keeps_overflow_empty():
 
 def test_highdim_projected_traversal():
     """Above PROJ_DIM the engine scores slabs in a random-orthonormal
-    projection (ADC table lookups are gather-bound on TPU: 242 QPS at
-    1M x 1536d vs ~30k projected, same recall) while the rerank stays
+    projection (ADC table lookups are gather-bound) while the rerank stays
     exact f32. Recall, persistence, and CRUD must hold; a product
     quantizer config must route to the projected path too."""
     from semadb_tpu.tools.datasets import embedding_like
@@ -918,3 +917,39 @@ def test_grow_ahead_and_pregrow():
 
     # AOT warm compiles without touching live arrays
     idx.warm_capacity_shapes(idx.capacity * 4, buckets=(64,))
+
+
+def test_sync_blocks_on_whole_index_state(monkeypatch):
+    """sync() hands every device array of the index to block_until_ready."""
+    import jax
+
+    idx = IndexIVF(VectorIVFParams(vector_size=8, distance_metric="euclidean"))
+    vecs = np.random.default_rng(2).standard_normal((600, 8)).astype(np.float32)
+    idx.insert_bulk(np.arange(2, 602), vecs)
+    seen = []
+    real = jax.block_until_ready
+    monkeypatch.setattr(jax, "block_until_ready", lambda x: seen.append(x) or real(x))
+    idx.sync()
+    arrays = seen[0]
+    assert any(a is idx.vectors for a in arrays)
+    assert any(a is idx.slabs for a in arrays)
+    assert any(a is idx.slab_ids for a in arrays)
+
+
+def test_grow_ahead_failure_is_logged_not_raised(monkeypatch):
+    """A failing background grower logs a warning and leaves capacity as is."""
+    import semadb_tpu.index.ivf as ivf_mod
+
+    idx = IndexIVF(VectorIVFParams(vector_size=8, distance_metric="euclidean"))
+    cap = idx.capacity
+
+    def broken(*a, **k):
+        raise RuntimeError("warm failed")
+
+    warnings = []
+    monkeypatch.setattr(idx, "warm_capacity_shapes", broken)
+    monkeypatch.setattr(ivf_mod.log, "warn", lambda msg, **f: warnings.append((msg, f)))
+    idx._grow_ahead()
+    assert idx.capacity == cap
+    assert warnings and warnings[0][1]["error"] == "warm failed"
+    assert idx._grow_thread is None

@@ -1,6 +1,6 @@
 """Device-mesh serving path (shardPlacement="device") end to end.
 
-VERDICT r3 missing #2: the TPU-native data plane (parallel/fanout.py) was
+VERDICT r3 missing #2: the device data plane (parallel/fanout.py) was
 never wired into the cluster serving stack. These tests drive the REAL
 HTTP v2 path on the 8-virtual-device CPU mesh: collection creation with
 device placement, spread insert (one shard per device), then search served
@@ -298,7 +298,7 @@ def test_http_v2_device_placement_end_to_end(tmp_path):
 def test_mesh_fused_matches_host_fanout(tmp_path):
     """VERDICT r4 #6a: vectorFused collections with device placement are
     served by ONE sharded_fused_search dispatch (per-shard psi mapping +
-    per-shard rank constants added before the ICI merge), with results
+    per-shard rank constants added before the all-gather merge), with results
     identical to the host fan-out on the same data."""
     node = make_node(tmp_path)
     try:

@@ -145,7 +145,7 @@ def test_sharded_ivf_search_matches_union():
 
 
 def test_sharded_ivf_equals_local_union_at_scale():
-    """The mesh fan-out (shard_map + ICI all-gather merge) must return
+    """The mesh fan-out (shard_map + all-gather merge) must return
     EXACTLY the merge of each shard's local search — the collective path
     adds no loss (actions.go:352-378 merge semantics) — at shapes large
     enough to exercise real slab/probe geometry (8 x 8192 x 64d)."""

@@ -205,3 +205,20 @@ def test_ann_benchmarks_adapter():
         assert res.shape == (16, 5)
         assert list(res[:, 0][:4]) == [0, 1, 2, 3]
         a.done()
+
+
+def test_bench_result_lines_name_the_device():
+    import os
+    import sys
+
+    import jax
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import bench
+
+    fields = bench._device_fields(jax)
+    assert fields == {
+        "platform": "cpu",
+        "device_kind": jax.devices()[0].device_kind,
+        "device_count": 8,
+    }

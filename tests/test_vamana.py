@@ -248,8 +248,8 @@ def test_mass_delete_many_components_terminates():
 def test_refine_keeps_invariants_and_recall():
     """refine() re-links every node against the current graph: recall must
     hold (within noise) and edges must stay valid/degree-bounded. (At 1M
-    scale a naive refine measurably HURTS a fresh build — see BENCHMARKS
-    negative results — but it must remain safe to run.)"""
+    scale a naive refine measurably hurts a fresh build's recall — but it
+    must remain safe to run.)"""
     import numpy as np
 
     from semadb_tpu.index.vamana import IndexVamana
@@ -289,7 +289,7 @@ def test_insert_bulk_two_pass_invariants_and_recall():
     """insert_bulk runs the two-pass alpha schedule (pass 1 at alpha=1.0,
     pass 2 keep_current re-insertion): the result must beat-or-match the
     single-pass incremental build's recall and hold every graph
-    invariant (1M measured: 0.9960 -> 1.0000 at L=75, BENCHMARKS)."""
+    invariant (recall at 1M rose 0.9960 -> 1.0000 at L=75)."""
     import numpy as np
 
     from semadb_tpu.index.vamana import IndexVamana
@@ -344,11 +344,11 @@ def test_insert_bulk_two_pass_invariants_and_recall():
 
 
 def test_insert_bulk_pool_build_invariants_and_recall():
-    """The MXU-native pool build (fastbuild.py: per-cluster exact-kNN
+    """The matmul-built pool build (fastbuild.py: per-cluster exact-kNN
     candidate pools + random long-range candidates, no beam searches)
     must hold every graph invariant and land within noise of the
     search-based two-pass build's recall (20k CPU A/B measured 0.9990
-    vs 0.9996; 1M TPU rows in BENCHMARKS.md)."""
+    vs 0.9996)."""
     import numpy as np
 
     from semadb_tpu.index.vamana import IndexVamana
